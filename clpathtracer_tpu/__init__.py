@@ -1,6 +1,6 @@
-"""clpathtracer_tpu — a TPU-native differentiable path-tracing framework.
+"""clpathtracer_tpu — a differentiable kd-tree/grid path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-imagining of the capabilities of
+A from-scratch JAX/XLA re-imagining of the capabilities of
 taylor-santos/CLPathTracer (an interactive OpenCL kd-tree path tracer):
 
 * OBJ mesh ingest (reference: src/model.c, include/tinyobj_loader_c.h)
@@ -8,10 +8,10 @@ taylor-santos/CLPathTracer (an interactive OpenCL kd-tree path tracer):
 * stackless ray traversal + Moller-Trumbore intersection (reference: src/kernel.cl)
 * camera model with inverse view-projection unprojection (reference: src/camera.c)
 
-re-designed TPU-first:
+re-designed for an accelerator (an NVIDIA GPU) through XLA:
 
 * rays are batched SoA arrays; traversal is a lockstep masked wavefront
-  (`lax.while_loop` + Pallas kernels) instead of divergent per-ray loops
+  (`lax.while_loop`) instead of divergent per-ray loops
 * the scene and acceleration structure are flat SoA device arrays (pytrees)
 * rendering is a pure function: scene in, image out — jit/pjit boundaries
   replace OpenCL command queues

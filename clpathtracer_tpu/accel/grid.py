@@ -7,9 +7,9 @@ by orders of magnitude. The adversarial bench soup is the opposite: 1M
 grid, because cell lookup is pure arithmetic (`floor((p - lo) / h)`), the
 3D-DDA walk needs no per-step node-table gather and no root descent, and
 occlusion/nearest queries in dense fog terminate within a handful of
-cells. On the TPU that matters doubly: every kd walk step costs a wide
-row gather just to learn the node's shape, while the DDA's cell advance
-is vector arithmetic on state the lane already holds.
+cells. Every kd walk step costs a row gather just to learn the node's
+shape, while the DDA's cell advance is vector arithmetic on state the
+lane already holds.
 
 Layout mirrors ops/traverse_fast.py's conventions so the walk kernel
 (ops/grid_walk.py) reuses the same quad-row Möller–Trumbore:
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from clpathtracer_tpu.utils import struct
 
 from clpathtracer_tpu.accel.sah import pack_quads_host
 
@@ -47,9 +47,8 @@ class UniformGrid:
       (cid < C) is that cell's row: 16-lane slot 0 carries
       (spill_row, count) and slots 1..7 carry the cell's first 7
       triangles inline; rows >= C are 8-triangle spill rows for cells
-      with more. A 128-wide gather costs the SAME as 64-wide and LESS
-      than 8-wide on this chip (latency-bound; narrow rows lane-pad),
-      so most cells complete in a single one-gather iteration.
+      with more. Most cells then complete in a single one-gather
+      iteration.
 
     Triangle records are 16 lanes each, pack_quads_host's layout:
     (v0[3], e1[3], e2[3], tri_id, pad[6]); tri_id -1 = pad slot.
@@ -135,7 +134,8 @@ def build_grid(tri_verts: np.ndarray, res=None, density: float = 1.0,
     roughly `density` triangles per cell with cells as close to cubical
     as the scene AABB allows (the classic lambda-heuristic with
     lambda = 1/density). layout: "inline" (one unified 128-wide row
-    table, the measured-faster walk) or "split" (meta + quad tables).
+    table, one gather per step; the default) or "split" (meta + quad
+    tables).
     """
     tv = np.asarray(tri_verts, np.float32)
     f = tv.shape[0]

@@ -1,7 +1,7 @@
 """Native (C++) acceleration-structure builder, loaded via ctypes.
 
 Compiled on first use with g++ (no pip / pybind11 dependency); the .so is
-cached next to the source and rebuilt when the source is newer. Falls back
+cached next to the source under a name keyed by a hash of it. Falls back
 cleanly — callers use `available()` / catch NativeBuildError and take the
 numpy builder instead.
 """
@@ -9,6 +9,7 @@ numpy builder instead.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -17,7 +18,6 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "sah_native.cpp")
-_SO = os.path.join(_DIR, "_sah_native.so")
 _lock = threading.Lock()
 _lib = None
 
@@ -26,12 +26,26 @@ class NativeBuildError(RuntimeError):
     pass
 
 
-def _compile() -> None:
-    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", _SO]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+def _so_path() -> str:
+    """The library built from the source as it is now: its file name
+    carries a hash of the .cpp, so a library built from any other version
+    of the source is never loaded."""
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_DIR, f"_sah_native.{digest}.so")
+
+
+def _compile(so: str) -> None:
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", tmp]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:  # no compiler on this machine
+        raise NativeBuildError(f"native builder compile failed: {e}") from e
     if proc.returncode != 0:
         raise NativeBuildError(
             f"native builder compile failed:\n{proc.stderr[-2000:]}")
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
 
 
 def _load():
@@ -41,10 +55,10 @@ def _load():
             return _lib
         if os.environ.get("CLPT_NO_NATIVE"):
             raise NativeBuildError("disabled via CLPT_NO_NATIVE")
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            _compile()
-        lib = ctypes.CDLL(_SO)
+        so = _so_path()
+        if not os.path.exists(so):
+            _compile(so)
+        lib = ctypes.CDLL(so)
         lib.kd_build.restype = ctypes.c_void_p
         lib.kd_build.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int32,

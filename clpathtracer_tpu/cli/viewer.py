@@ -2,8 +2,8 @@
 
 The reference opens an OpenGL window, captures raw mouse for look, WASD
 for movement, scroll for FOV zoom, and re-renders every frame
-(src/game.c:219-280, src/GLState.c:91-111). A TPU renderer has no local
-GPU surface, so the viewer is a matplotlib window: same control scheme,
+(src/game.c:219-280, src/GLState.c:91-111). This renderer draws no GL
+surface of its own, so the viewer is a matplotlib window: same control scheme,
 re-rendering on input instead of per-vsync.
 
 Controls (reference bindings, src/game.c:108-171):

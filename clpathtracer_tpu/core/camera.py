@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from clpathtracer_tpu.utils import struct
 
 from clpathtracer_tpu.core import vecmath as vm
 from clpathtracer_tpu.core.matrix import mat_inverse, mat_multiply
@@ -142,8 +142,8 @@ def generate_rays(cam_inv: jnp.ndarray, width: int, height: int):
       dir      = normalize(fcp - ncp)
 
     Returns (origins [H*W, 3], dirs [H*W, 3]) flattened row-major so pixel
-    (x, y) is element y*W + x — a flat SoA wavefront, the TPU-native unit of
-    work (the reference's 2-D NDRange collapsed to a shardable axis).
+    (x, y) is element y*W + x — a flat SoA wavefront, this framework's unit
+    of work (the reference's 2-D NDRange collapsed to a shardable axis).
     """
     dtype = cam_inv.dtype
     xs = jnp.arange(width, dtype=dtype) - jnp.asarray(width, dtype) / 2.0

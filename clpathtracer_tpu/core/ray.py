@@ -9,7 +9,7 @@ vmap, and shard_map can all partition.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from clpathtracer_tpu.utils import struct
 
 
 @struct.dataclass

@@ -1,6 +1,6 @@
 """Batched 3-vector math over trailing-axis-3 arrays.
 
-TPU-native analogue of the reference's scalar float3 helpers
+Batched analogue of the reference's scalar float3 helpers
 (reference: src/vector.c:5-113, include/vector.h:12-23). Everything here is
 shape-polymorphic over leading axes so the same functions serve a single
 camera vector on the host and a [N_RAYS, 3] wavefront on device.

@@ -39,7 +39,7 @@ band (alpha=1 elsewhere), so the estimator stays consistent with the
 hard render as the band shrinks.
 
 Reference parity note: the reference has no gradients at all; this is
-part of the differentiable axis the TPU framework adds.
+part of the differentiable axis this framework adds.
 """
 
 from __future__ import annotations

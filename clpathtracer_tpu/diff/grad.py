@@ -42,9 +42,7 @@ BIG = 3.4e38  # plain float: avoids a hoisted jaxpr constant
 
 def intersect_diff(scene, tree, orig, dir, tri_block: int = 4,
                    max_iters: int = 4096, scene_axis: str = None,
-                   packet: bool = False, coherent: bool = True,
-                   packet_tile: int = 1024, image_shape=None, active=None,
-                   shared_origin: bool = False, grid_dirs: bool = False,
+                   coherent: bool = True, active=None,
                    bounce_grid: bool = None):
     """Nearest triangle hit with differentiable t/u/v and detached topology.
 
@@ -66,55 +64,30 @@ def intersect_diff(scene, tree, orig, dir, tri_block: int = 4,
     elif tree is not None:
         v0, v1, v2 = scene.tri_verts()
         if tree.node_table is not None and tri_block == 4:
-            from clpathtracer_tpu.ops.packet import (
-                packet_supported, traverse_packet)
             from clpathtracer_tpu.ops.traverse_fast import (
                 pack_quads, traverse_fast)
-            quads = pack_quads(tree.tri_indices, sg(v0), sg(v1), sg(v2))
-            n = orig.shape[0]
             if bounce_grid is None:
-                # legacy env fallback for direct callers; render paths
-                # thread RenderOptions.bounce_grid (resolved at options
+                # env fallback for direct callers; render paths thread
+                # RenderOptions.bounce_grid (resolved at options
                 # CONSTRUCTION, so it participates in the jit cache key)
                 bounce_grid = os.environ.get(
                     "CLPT_BOUNCE_GRID", "1") == "1"
-            if (not coherent and getattr(tree, "grid", None) is not None
-                    and bounce_grid):
+            if (not coherent and tree.grid is not None and bounce_grid):
                 # incoherent bounce wave with a uniform grid attached:
                 # same reroute as the primal integrator
                 # (render/integrator.py) — topology is detached, so the
-                # DDA walk (measured 7.6x over the sorted bundle engines
-                # on the 1M fog, probes/probe_grid.py) is eligible as the
-                # forward intersector; the per-winner re-resolve below
-                # restores the gradient path. NOTE: the grid's baked
-                # quads come from build-time verts — detached topology
-                # makes that sound (hit *selection* may lag a vertex
-                # update by one build, exactly like tree.quads on the
-                # packet path; t/u/v re-resolve from live verts below).
+                # DDA walk is eligible as the forward intersector; the
+                # per-winner re-resolve below restores the gradient path.
+                # The grid's baked quads come from build-time verts:
+                # detached topology makes that sound (hit *selection* may
+                # lag a vertex update by one build, like tree.quads; t/u/v
+                # re-resolve from live verts below).
                 from clpathtracer_tpu.ops.grid_walk import traverse_grid
                 rec = traverse_grid(sg(tree.grid), sg(orig), sg(dir),
                                     max_iters=max_iters, active=active)
-            elif packet and packet_supported(tree, n, packet_tile):
-                # topology is detached anyway, so the fast Pallas packet
-                # engine is eligible as the forward intersector
-                # (VERDICT r1 #7): coherent primaries go straight in,
-                # scattered bounce wavefronts Morton-sort first
-                if coherent:
-                    rec = traverse_packet(tree, quads, sg(orig), sg(dir),
-                                          image_shape=image_shape,
-                                          tile=packet_tile, active=active,
-                                          shared_origin=shared_origin,
-                                          grid_dirs=grid_dirs)
-                else:
-                    from clpathtracer_tpu.ops.sort import sort_rays
-                    perm, inv = sort_rays(sg(orig), sg(dir), alive=active)
-                    act_p = active[perm] if active is not None else None
-                    rec = traverse_packet(tree, quads, sg(orig)[perm],
-                                          sg(dir)[perm], tile=packet_tile,
-                                          active=act_p)
-                    rec = {k: v[inv] if v.shape[:1] == perm.shape else v
-                           for k, v in rec.items()}
             else:
+                quads = pack_quads(tree.tri_indices, sg(v0), sg(v1),
+                                   sg(v2))
                 rec = traverse_fast(tree, quads, sg(orig), sg(dir),
                                     max_iters=max_iters, active=active)
         else:

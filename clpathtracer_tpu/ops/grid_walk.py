@@ -51,8 +51,8 @@ def traverse_grid(grid, orig, dir, max_iters: int = 16384,
     """
     assert not any_hit or t_max is not None, "any_hit needs t_max"
     n = orig.shape[0]
-    # wave chunking (ops/traverse_fast.py::chunk_wave — shared helper,
-    # measured sweep in its docstring): 64k lanes is the optimum
+    # optional wave chunking (ops/traverse_fast.py::chunk_wave — shared
+    # helper, measured in its docstring; off by default)
     from clpathtracer_tpu.ops.traverse_fast import chunk_wave
     chunked = chunk_wave(
         lambda o, d, tm, act: traverse_grid(
@@ -121,8 +121,7 @@ def traverse_grid(grid, orig, dir, max_iters: int = 16384,
     cid0 = (cell[:, 0] * ry + cell[:, 1]) * rz + cell[:, 2]
     # the walk carries the winner's (t, tri, u, v) through the loop — the
     # in-loop _mt_pre already computes them exactly, so no post-walk
-    # resolve GATHER is needed at all (a ~262k-lane row gather costs
-    # ~2.8 ms on this chip — probes/probe_gather_tpu.py — per wave)
+    # resolve gather over the whole wave is needed
     state = {
         "cell": cell,
         "t_next": t_next,
@@ -307,16 +306,15 @@ def traverse_grid(grid, orig, dir, max_iters: int = 16384,
         size = n
         # the DDA's stragglers are the rays that miss everything and walk
         # the whole grid (~sum(res) cells), so the tail floor is a real
-        # cost knob: sweepable via CLPT_GRID_MIN (chip-measured default)
+        # cost knob, sweepable via CLPT_GRID_MIN (default not measured on
+        # the GPU yet)
         floor = int(os.environ.get("CLPT_GRID_MIN", "2048"))
         min_size = min(n, max(floor, n // 64))
         # wind-down aggressiveness: shrink the wavefront F-fold once
-        # active lanes drop below 1/F. Fog active fractions decay fast
-        # (most lanes settle in their first occupied cells), so eager
-        # halving beats quartering: chip sweep F=2/4/8 → bounce
-        # 115.5/135.6/180.5 ms, shadow 125.6/150 ms at F=2/4
-        # (probes/probe_grid.py); the extra argsort rounds cost less
-        # than the over-wide head iterations they remove
+        # active lanes drop below 1/F (CLPT_GRID_FRAC). Fog active
+        # fractions decay fast (most lanes settle in their first occupied
+        # cells), so eager halving is the default; not measured on the
+        # GPU yet
         frac = int(os.environ.get("CLPT_GRID_FRAC", "2"))
 
         def run_loop(s, it0):

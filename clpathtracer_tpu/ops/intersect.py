@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from clpathtracer_tpu.core import vecmath as vm
 
 TRI_EPS = 0.0  # reference EPS (src/kernel.cl:19)
+BIG = 3.4e38  # plain float: avoids a hoisted jaxpr constant
 
 
 def moller_trumbore(v0, v1, v2, orig, dir, eps: float = TRI_EPS):
@@ -59,6 +60,22 @@ def moller_trumbore(v0, v1, v2, orig, dir, eps: float = TRI_EPS):
     return ok, t, u, v
 
 
+def slab_t(near_b, far_b, orig, invdir):
+    """Per-axis slab entry and exit distances (near_b - orig) * invdir
+    and (far_b - orig) * invdir.
+
+    A ray parallel to an axis (invdir = ±inf) whose origin lies exactly on
+    a slab plane makes 0 * inf = NaN. Such a ray lies in the box's face,
+    so the slab counts as not limiting it: entry -BIG, exit +BIG. A walk
+    then follows the leaves on the descent's side of the plane, which
+    hold every triangle such a ray can hit (straddling triangles are
+    duplicated into both children)."""
+    t_near = (near_b - orig) * invdir
+    t_far = (far_b - orig) * invdir
+    return (jnp.where(jnp.isnan(t_near), -BIG, t_near),
+            jnp.where(jnp.isnan(t_far), BIG, t_far))
+
+
 def hit_aabb(lo, hi, orig, invdir, sign):
     """Slab test with entry/exit face ids (reference hit_AABB,
     src/kernel.cl:101-144).
@@ -72,8 +89,7 @@ def hit_aabb(lo, hi, orig, invdir, sign):
     signf = sign.astype(lo.dtype)
     near_b = lo + signf * (hi - lo)       # bounds[sign]
     far_b = hi - signf * (hi - lo)        # bounds[1 - sign]
-    t_near = (near_b - orig) * invdir     # [..., 3]
-    t_far = (far_b - orig) * invdir
+    t_near, t_far = slab_t(near_b, far_b, orig, invdir)  # [..., 3]
 
     tmin = t_near[..., 0]
     tmax = t_far[..., 0]
@@ -108,8 +124,7 @@ def traverse_aabb(lo, hi, orig, invdir, sign):
     signf = sign.astype(lo.dtype)
     near_b = lo + signf * (hi - lo)
     far_b = hi - signf * (hi - lo)
-    t_near = (near_b - orig) * invdir
-    t_far = (far_b - orig) * invdir
+    t_near, t_far = slab_t(near_b, far_b, orig, invdir)
 
     tmin = t_near[..., 0]
     tmax = t_far[..., 0]
@@ -153,7 +168,7 @@ def nearest_hit_bruteforce(scene, orig, dir, t_min_eps: float = 0.0):
 
     BASELINE config[0]'s "flat linear-scan intersect" and the golden-image
     reference for tree-traversal tests. O(F) per ray but fully dense —
-    on TPU this is a [N_rays, F] broadcastable computation.
+    a [N_rays, F] broadcastable computation.
 
     Returns dict with hit [N] bool, t [N], prim_id [N] (triangle index, or
     F + sphere index), u/v [N] barycentrics (0 for spheres).

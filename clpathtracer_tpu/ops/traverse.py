@@ -2,8 +2,8 @@
 
 The reference walks the rope-linked kd-tree with one divergent scalar loop
 per ray (src/kernel.cl:296-422): descend splits by point location, test the
-leaf's triangles, hop the exit-face rope. TPUs have no per-lane control
-flow, so this module runs the SAME algorithm as a *lockstep wavefront*: all
+leaf's triangles, hop the exit-face rope. Under XLA this module runs the
+SAME algorithm as a *lockstep wavefront* instead: all
 rays advance together through masked vector steps inside `lax.while_loop`s,
 with per-ray state (current node, query point, best hit) carried as flat
 SoA arrays. Every per-ray branch of the reference becomes a `jnp.where`.
@@ -32,7 +32,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from clpathtracer_tpu.utils import struct
 
 from clpathtracer_tpu.ops.intersect import moller_trumbore, traverse_aabb, hit_aabb
 

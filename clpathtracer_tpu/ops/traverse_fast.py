@@ -1,11 +1,9 @@
-"""Gather-optimized wavefront kd traversal (the TPU fast path).
+"""Gather-packed wavefront kd traversal (the XLA route of every ray kind).
 
 Semantics-identical to ops/traverse.py (same rope-walk as the reference
 kernel, src/kernel.cl:296-422 — see that module's docstring for the exact
-rules preserved), restructured around one measured fact about XLA on TPU:
-per-lane gathers of WIDE contiguous rows run ~50x faster than scalar
-gathers (a [65k]-lane gather of 16-128 consecutive f32 runs at HBM-class
-throughput ~130us, while ten 1-wide gathers cost ~5-6ms).
+rules preserved), restructured so each walk step reads whole rows: one
+per-lane gather of a wide contiguous row instead of a gather per field.
 
 So all per-node state is packed into ONE 24-wide f32 row and each leaf's
 triangles into 64-wide "quad rows" of 4 pre-differenced triangles:
@@ -24,8 +22,8 @@ triangles into 64-wide "quad rows" of 4 pre-differenced triangles:
 One iteration of the fused while_loop advances EVERY ray by one step of
 the reference's algorithm — one split descent OR one 4-triangle block test
 (+ rope hop) — at a cost of exactly two wide gathers. Rays at splits waste
-the quad gather (lanes are lockstep; masked), which measurement shows is
-far cheaper than a second control loop.
+the quad gather (lanes are lockstep; masked) instead of running a second
+control loop.
 
 Node/tri ids ride in f32: exact for ids < 2^24 (guarded at pack time) —
 a 16M-node tree is ~40x larger than the 1M-tri bench scene needs.
@@ -39,7 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clpathtracer_tpu.ops.intersect import hit_aabb
+from clpathtracer_tpu.ops.intersect import hit_aabb, slab_t
 
 BIG = 3.4e38
 EXIT_EPS = 0.001  # reference early-exit slack (src/kernel.cl:381)
@@ -49,22 +47,22 @@ QBLOCK = 4        # triangles per quad row; leaf lists padded to this
 def chunk_wave(trace_fn, env_name, orig, dir, t_max, active):
     """Split a big wave into sequential chunks and concat the records.
 
-    Latency-bound row gathers are SUPERLINEAR in wave width (half-width
-    gathers are 2.4x cheaper each — probes/probe_gather_tpu.py e), so
-    the per-ray walks run 262k-lane waves as sequential 64k chunks,
-    each with its own finer wind-down. Chip sweeps: grid walk
-    0/128k/64k/32k -> bounce 114.9/101.4/95.5/106.7 ms; kd walk on the
-    terrain path frame 742.6/703.6/—/713.1 ms (probes/probe_grid.py,
-    bench). Shared by traverse_fast and ops/grid_walk.py.
+    Off by default (knob unset or 0): on an NVIDIA H100 80GB HBM3 at its
+    700 W limit, the 512² path frame of the 1M-triangle emissive soup (2
+    bounces + NEE, grid attached) took 69.8 / 71.8 ms unchunked against
+    174.1 / 176.2 ms in 65536-lane chunks, the four runs alternating in
+    one process (bench.py --legs path --wave-chunks 0,65536,65536,0).
+    Shared by traverse_fast (CLPT_WALK_CHUNK) and ops/grid_walk.py
+    (CLPT_GRID_CHUNK).
 
     Returns None when chunking doesn't apply (knob 0, small wave, or n
     not divisible — those stay full-width). The env knob is read at
     trace time: flipping it between same-shape jitted calls reuses the
     cached program (results are bit-identical either way; sweep it
-    across processes or fresh jit wrappers, like every probe does).
-    Scalar t_max is broadcast before slicing."""
+    across processes or after jax.clear_caches()). Scalar t_max is
+    broadcast before slicing."""
     n = orig.shape[0]
-    chunk = int(os.environ.get(env_name, "65536"))
+    chunk = int(os.environ.get(env_name, "0"))
     if not (chunk > 0 and n > chunk and n % chunk == 0):
         return None
     tm = (None if t_max is None
@@ -105,16 +103,15 @@ def pack_node_table(arrays: dict) -> np.ndarray:
 def build_walk_table(node_table, quads) -> np.ndarray:
     """Fused walk rows: [N + S, 128] f32 — ONE gather per walk step.
 
-    Row gathers cost the same at any width <= 128 lanes
-    (probes/probe_gather_tpu.py), yet the rope walk paid TWO per
-    iteration: a 24-wide node row plus a 64-wide quad row. This table
+    The rope walk pays TWO row gathers per iteration: a 24-wide node
+    row plus a 64-wide quad row. This table
     folds them: row i < N is node i's 24 meta lanes (lane 18 repurposed
     as the node's first SPILL row id) plus, for leaves, the leaf's FIRST
     quad row in lanes 64:128 — so a descent step or a <=4-tri leaf costs
     one gather. Leaves with more triangles continue into contiguous
-    SPILL rows (two quad rows = 8 triangle records each), the same
-    packing that bought the grid walk ~20% (accel/grid.py inline
-    layout). Quad slot ids are preserved exactly (slot = leaf_qstart*4
+    SPILL rows (two quad rows = 8 triangle records each), the packing
+    of the grid walk's inline layout (accel/grid.py). Quad slot ids are
+    preserved exactly (slot = leaf_qstart*4
     + offset + lane), so resolve_slot and all tie rules are unchanged.
 
     Baked from the BUILD-time quads: traverse_fast only engages it when
@@ -335,8 +332,7 @@ def traverse_fast(tree, quads: jnp.ndarray, orig, dir,
         sgf = sg.astype(lo3.dtype)
         near_b = lo3 + sgf * (hi3 - lo3)
         far_b = hi3 - sgf * (hi3 - lo3)
-        t_near = (near_b - o) * inv
-        t_far = (far_b - o) * inv
+        t_near, t_far = slab_t(near_b, far_b, o, inv)
         tmin = t_near[:, 0]
         tmax = t_far[:, 0]
         far_face = 1 - sg[:, 0]
@@ -423,8 +419,8 @@ def traverse_fast(tree, quads: jnp.ndarray, orig, dir,
         is_leaf = flags >= 4
 
         # --- split descent (src/kernel.cl:325-330) ---
-        # per-lane axis select as arithmetic where-chains: take_along_axis
-        # lowers to a narrow per-lane gather that costs ~50x a wide one
+        # per-lane axis select as arithmetic where-chains instead of a
+        # take_along_axis gather
         pp = s["p"]
         pax = jnp.where(axis == 0, pp[:, 0],
                         jnp.where(axis == 1, pp[:, 1], pp[:, 2]))
@@ -471,8 +467,7 @@ def traverse_fast(tree, quads: jnp.ndarray, orig, dir,
         sgf = sg.astype(lo3.dtype)
         near_b = lo3 + sgf * (hi3 - lo3)
         far_b = hi3 - sgf * (hi3 - lo3)
-        t_near = (near_b - o) * inv
-        t_far = (far_b - o) * inv
+        t_near, t_far = slab_t(near_b, far_b, o, inv)
         tmin = t_near[:, 0]
         tmax = t_far[:, 0]
         far_face = 1 - sg[:, 0]
@@ -553,9 +548,9 @@ def traverse_fast(tree, quads: jnp.ndarray, orig, dir,
         state["ridx"] = idx
         it = jnp.int32(0)
         size = n
-        # below ~2k lanes a wide gather is latency-bound, not width-bound —
-        # narrower wavefronts stop paying off. Quartering (not halving)
-        # keeps the python-level round count — and so compile time — low.
+        # stop shrinking at ~2k lanes: narrower wavefronts leave the
+        # device idle. Quartering (not halving) keeps the python-level
+        # round count — and so compile time — low.
         min_size = min(n, max(2048, n // 64))
         while size >= min_size:
             (state, it) = run_loop(state, max_iters, it)
@@ -587,9 +582,8 @@ def traverse_fast(tree, quads: jnp.ndarray, orig, dir,
 
     if any_hit:
         # occlusion query: callers consume `hit` only, so skip the
-        # resolve_slot row gather (~2.8 ms per 262k-lane wave on this
-        # chip, probes/probe_gather_tpu.py). t is the walk's carried
-        # best_t (the accepted hit's exact _mt_pre t); the tri id would
+        # resolve_slot row gather over the whole wave. t is the walk's
+        # carried best_t (the accepted hit's exact _mt_pre t); the tri id would
         # need the gather, so hits report the sentinel 0 — any_hit's
         # contract already says t/tri describe *a* hit, not the nearest.
         hit = out["best_slot"] >= 0

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is a width x height NDRange on ONE OpenCL
 device (src/CLState.c:209-211); there is no multi-device anything. This
-module lifts the per-pixel data parallelism across TPU chips the XLA way:
+module lifts the per-pixel data parallelism across devices the XLA way:
 a `jax.sharding.Mesh`, sharding annotations on the ray wavefront, and GSPMD
 partitioning of the (embarrassingly ray-parallel) render — collectives are
 inserted by the compiler, never hand-written (SURVEY.md §2/§5).
@@ -18,7 +18,6 @@ Axes:
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -72,64 +71,10 @@ def make_sharded_renderer(opts: RenderOptions, mesh: Mesh):
         spec = NamedSharding(mesh, P("rows", None))
         orig = jax.lax.with_sharding_constraint(orig, spec)
         dir = jax.lax.with_sharding_constraint(dir, spec)
-        # rays are pinhole primaries generated right above — the packet
-        # engine may bake shared-origin rows (ops/packet.py::so_rows)
-        img = render_rays(scene, tree, orig, dir, opts, key,
-                          shared_origin=True, grid_dirs=True)
+        img = render_rays(scene, tree, orig, dir, opts, key)
         return img.reshape(opts.height, opts.width, 3)
 
     return jax.jit(impl, out_shardings=row_sharded(mesh, rank=3))
-
-
-def make_sharded_packet_renderer(opts: RenderOptions, mesh: Mesh):
-    """Data-parallel renderer for the Pallas packet engine.
-
-    GSPMD can partition the pure-XLA wavefront automatically
-    (make_sharded_renderer), but a pallas_call is opaque to it — so here
-    each device runs the packet kernel on its own row-block of the frame
-    via shard_map. Scene/tree replicated, pixel rows split over "rows".
-
-    Deterministic modes (normal/mirror) stay bit-identical to single-chip;
-    path mode draws per-shard random numbers and differs from the
-    single-chip sample sequence (same distribution).
-    """
-    import dataclasses
-
-    from clpathtracer_tpu.render.integrator import render_rays
-    from jax import shard_map
-
-    n_rows = mesh.shape["rows"]
-    assert opts.height % n_rows == 0, (opts.height, n_rows)
-    local_h = opts.height // n_rows
-    opts_local = dataclasses.replace(opts, height=local_h)
-
-    def local(scene, camera, tree, key, orig, dir):
-        # independent per-shard randomness: fold the shard's row-block index
-        # into the (replicated) key, else every row block repeats the same
-        # noise pattern
-        if key is not None:
-            key = jax.random.fold_in(key, jax.lax.axis_index("rows"))
-        # per-shard rays are still unjittered grid rows of the local
-        # block (generate_rays of the full frame, row-sliced)
-        img = render_rays(scene, tree, orig, dir, opts_local, key,
-                          shared_origin=True, grid_dirs=True)
-        return img.reshape(local_h, opts.width, 3)
-
-    sharded = shard_map(
-        local, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P("rows", None), P("rows", None)),
-        out_specs=P("rows", None, None),
-        # pallas_call outputs carry no varying-mesh-axes metadata
-        check_vma=False,
-    )
-
-    @jax.jit
-    def render(scene, camera, tree, key):
-        cam_inv = cam_matrix(camera, opts.height)
-        orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        return sharded(scene, camera, tree, key, orig, dir)
-
-    return render
 
 
 def render_image_sharded(scene, camera, opts: RenderOptions, tree=None,

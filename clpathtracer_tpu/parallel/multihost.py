@@ -1,12 +1,12 @@
 """Multi-host process-group setup.
 
 The reference has no distribution at all (single OpenCL device,
-SURVEY §2). For pod-slice runs the framework uses JAX's standard
+SURVEY §2). For multi-host runs the framework uses JAX's standard
 multi-controller model: every host runs the same program,
 `jax.distributed.initialize` forms the process group (rendezvous via the
 coordinator address), and the (rows, scene) mesh from parallel/mesh.py is
-built over jax.devices() — which then spans all hosts, with XLA routing
-collectives over ICI within a slice and DCN across slices.
+built over jax.devices() — which then spans all hosts, with XLA (NCCL on
+GPUs) carrying the collectives.
 
 Fail-fast policy (SURVEY §5 failure detection): initialization errors
 raise immediately; set a rendezvous timeout rather than hanging forever.
@@ -25,8 +25,10 @@ def init_distributed(coordinator_address: str = None,
                      initialization_timeout: int = 300) -> dict:
     """Initialize the multi-host process group (idempotent).
 
-    With no arguments, relies on the cluster environment (TPU pod metadata
-    or JAX_COORDINATOR_ADDRESS etc.). Returns a topology summary dict.
+    With no arguments, relies on what the cluster environment tells JAX
+    (JAX_COORDINATOR_ADDRESS etc.); where nothing does, pass
+    coordinator_address (e.g. "localhost:<port>"), num_processes and
+    process_id. Returns a topology summary dict.
     """
     # jax 0.9 moved global_state out of the public module; the public
     # probe for "process group already formed" is is_initialized()

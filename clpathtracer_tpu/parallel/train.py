@@ -8,8 +8,8 @@ reference renders forward only.
 Distribution model: pure data parallelism over pixels. The target image and
 the ray wavefront are sharded over the mesh "rows" axis; scene parameters
 are replicated. `jax.grad` under `jit` with these shardings makes XLA emit
-the gradient all-reduce (psum over "rows") automatically — the TPU-native
-replacement for hand-written NCCL allreduce (SURVEY.md §5, distributed
+the gradient all-reduce (psum over "rows") automatically — compiler-derived
+in place of a hand-written allreduce (SURVEY.md §5, distributed
 communication backend).
 """
 

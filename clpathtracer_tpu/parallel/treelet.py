@@ -1,13 +1,13 @@
-"""Scene-parallel rendering: treelet-sharded triangles across chips.
+"""Scene-parallel rendering: treelet-sharded triangles across devices.
 
-For scenes too large to replicate per chip, the SURVEY §5 design: shard
+For scenes too large to replicate per device, the SURVEY §5 design: shard
 PRIMITIVES across the mesh "scene" axis. Triangles are partitioned into
 spatially coherent treelets (Morton-order chunks), each shard gets its own
-kd-tree, every chip traverses its resident rays against its local treelet,
-and the per-shard nearest hits are combined with XLA collectives
-(min-reduction over the "scene" axis inside shard_map) — the TPU-native
-replacement for the reference's single-device upload (src/CLState.c:124-202)
-and for hand-written NCCL reductions.
+kd-tree, every device traverses its resident rays against its local
+treelet, and the per-shard nearest hits are combined with XLA collectives
+(min-reduction over the "scene" axis inside shard_map) — in place of the
+reference's single-device upload (src/CLState.c:124-202) and of
+hand-written reductions.
 
 Combination semantics: global nearest hit = min t over shards; on exact
 ties the LOWEST shard index wins (cross-shard tie order is arbitrary since
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from clpathtracer_tpu.utils import struct
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
@@ -173,7 +173,7 @@ def intersect_ring(stree: ShardedTree, orig, dir, axis_name: str = None,
         cur_table, cur_quads = table, quads
         if axis_name is not None and s < S - 1:
             # issue the rotation of the NEXT block now — independent of the
-            # traversal below, so the ICI transfer hides under compute
+            # traversal below, so the transfer can hide under compute
             table = jax.lax.ppermute(table, axis_name, perm)
             quads = jax.lax.ppermute(quads, axis_name, perm)
         blk_t = cur_table[0] if axis_name is not None else cur_table[s]

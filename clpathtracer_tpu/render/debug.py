@@ -11,7 +11,6 @@ from __future__ import annotations
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from clpathtracer_tpu.core.camera import cam_matrix, generate_rays
@@ -54,36 +53,3 @@ def traversal_report(scene, camera, opts: RenderOptions, tree) -> dict:
         "p99_steps_per_ray": float(np.percentile(steps, 99)),
         **{f"tree_{k}": v for k, v in tree.stats().items()},
     }
-
-
-def packet_tile_image(scene, camera, opts: RenderOptions, tree,
-                      stat: str = "chunks"):
-    """[H/side, W/side] f32 image of per-TILE packet-kernel cost for a
-    primary-ray frame: stat="chunks" (leaf chunks DMA'd — the VPU/HBM
-    cost driver), "nodes" (scalar pops) or "active" (live lanes).
-
-    The packet analogue of traversal_steps_image: one texel per packet
-    tile, straight from the kernel's tile_stats channel. Colorize with
-    colorize_heatmap.
-    """
-    import math
-
-    from clpathtracer_tpu.ops.packet import traverse_packet
-
-    col = {"nodes": 0, "chunks": 1, "active": 2, "culled": 3}[stat]
-    side = int(math.isqrt(opts.packet_tile))
-    assert side * side == opts.packet_tile, "square tiles only"
-    assert opts.height % side == 0 and opts.width % side == 0
-
-    @partial(jax.jit)
-    def run(scene, camera, tree):
-        cam_inv = cam_matrix(camera, opts.height)
-        orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        quads = tree.quads
-        rec = traverse_packet(tree, quads, orig, dir,
-                              image_shape=(opts.height, opts.width),
-                              tile=opts.packet_tile)
-        return rec["tile_stats"][:, col]
-
-    stats = np.asarray(run(scene, camera, tree))
-    return stats.reshape(opts.height // side, opts.width // side)

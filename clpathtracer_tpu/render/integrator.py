@@ -32,8 +32,7 @@ import jax.numpy as jnp
 from clpathtracer_tpu.core import vecmath as vm
 from clpathtracer_tpu.core.camera import (
     cam_matrix, generate_rays, generate_rays_jittered)
-from clpathtracer_tpu.ops.intersect import (
-    hit_sphere, moller_trumbore, nearest_hit_bruteforce)
+from clpathtracer_tpu.ops.intersect import hit_sphere, nearest_hit_bruteforce
 from clpathtracer_tpu.ops.traverse import PackedTris, traverse
 from clpathtracer_tpu.ops.traverse_fast import pack_quads, traverse_fast
 from clpathtracer_tpu.render.shading import (
@@ -62,19 +61,6 @@ class RenderOptions:
     bounce_eps: float = 1e-4   # reflection origin offset (src/kernel.cl:401)
     max_iters: int = 16384     # traversal safety cap
     compact: bool = True       # wavefront wind-down compaction (fast path)
-    intersector: str = "wavefront"  # wavefront | packet (Pallas packet
-    #   tracer for coherent rays; falls back when the scene exceeds VMEM)
-    sort_bounces: bool = True  # with intersector=packet: Morton/octant-
-    #   sort scattered bounce rays before packeting. Measured end-to-end
-    #   at 1M tris 512² on v5e (bench.py): path 2-bounce frame 1.98 s
-    #   sorted vs 12.5 s pixel-blocked (incoherent directions defeat
-    #   packet culling — near-full-tree enumeration per tile); mirror
-    #   3-bounce 4.5 s sorted, blocked crashes the TPU worker in chained
-    #   frames (open hardware issue — see docs/ARCHITECTURE.md). False
-    #   keeps the blocked path (cheap only while bounce directions stay
-    #   screen-coherent, and currently unsafe for chained mirror frames)
-    packet_tile: int = 1024    # rays per packet (square pixel tiles);
-    #   256 favors huge scenes with fat leaves, 1024 small/medium scenes
     nee: bool = False          # path mode: next-event estimation (direct
     #   light sampling with shadow rays) — much lower variance for small
     #   emitters
@@ -83,9 +69,6 @@ class RenderOptions:
     scene_axis: str = None     # treelet ring: mesh axis name the scene is
     #   sharded over (set by parallel/treelet.py wrappers when rendering
     #   inside shard_map; None = scene replicated / sequential ring)
-    precision: str = "f32"     # "bf16" = preview-quality packet
-    #   intersection (~2x VPU rate; bf16 cancellation costs ~7% of hits
-    #   on small-triangle scenes — previews only). Stream engine only.
     bounce_grid: bool = None   # route incoherent bounce/shadow waves
     #   through the scene's attached uniform grid (tree.grid) when one
     #   exists. None resolves from CLPT_BOUNCE_GRID at CONSTRUCTION time
@@ -105,21 +88,6 @@ class RenderOptions:
     #   "reparameterized/edge-aware pixel gradients"). Costs one extra
     #   traversal + shading pass. Forward image changes only inside the
     #   band. Ignored in mirror mode.
-    resolve_chunk: int = None  # plist winner-resolve chunking (lanes per
-    #   chunk; 0 = unchunked). None resolves from CLPT_RESOLVE_CHUNK at
-    #   CONSTRUCTION time: the chunked resolve has documented
-    #   conditioning-bounded u/v drift vs the unchunked one
-    #   (tests/test_plist.py::test_plist_resolve_chunk_parity), so the
-    #   choice must live in the jit cache key, never in a trace-time env
-    #   read (docs/KNOBS.md).
-    nee_light_stride: int = 1  # NEE: one light sample shared by each
-    #   run of this many consecutive rays (1 = independent per-lane
-    #   sampling, the reference estimator). Strides of a plist-bundle
-    #   multiple (512) make the shadow wave's directions converge to
-    #   per-bundle points — the coherence the sorted-bundle shadow
-    #   engine needs (CLPT_SHADOW_BUNDLE) — at the cost of CORRELATED
-    #   direct-lighting noise within each run (unbiased: the shared
-    #   sample is still drawn from the exact emitter pdf).
 
     def __post_init__(self):
         if self.bounce_grid is None:
@@ -130,10 +98,6 @@ class RenderOptions:
             object.__setattr__(
                 self, "bounce_walk",
                 os.environ.get("CLPT_BOUNCE_WALK", "1") == "1")
-        if self.resolve_chunk is None:
-            object.__setattr__(
-                self, "resolve_chunk",
-                int(os.environ.get("CLPT_RESOLVE_CHUNK", "0")))
 
 
 # ---------------------------------------------------------------------------
@@ -142,50 +106,29 @@ class RenderOptions:
 
 
 def intersect_scene(scene, tree, orig, dir, opts: RenderOptions,
-                    coherent: bool = True, active=None,
-                    shared_origin: bool = False,
-                    grid_dirs: bool = False,
-                    jitter_px: float = 0.0):
+                    coherent: bool = True, active=None):
     """Nearest hit against triangles (+ spheres). Returns dict with
     hit [N] bool, t [N], tri [N] (-1 if none), u/v [N], sphere [N] (-1 if
     the nearest hit is not a sphere).
 
-    coherent: whether the wavefront is screen-coherent (primary rays).
-    The packet tracer only pays off for coherent tiles — scattered bounce
-    rays give every packet near-unbounded interval bounds, so those always
-    take the per-ray wavefront.
-
-    shared_origin: caller-asserted promise that every ray origin is
-    identical (pinhole primary rays) — lets the packet tracer stream
-    baked signed-volume rows instead of quads (ops/packet.py::so_rows),
-    ~1.5x fewer vector ops in the dense test. Only the coherent packet
-    branch uses it.
+    coherent: whether the wavefront is camera rays. Incoherent waves
+    (bounces) take the scene's per-ray accelerator when one is attached:
+    the uniform grid on fog-like scenes (tree.grid, opts.bounce_grid),
+    the small-leaf shadow tree on surface scenes (tree.shadow,
+    opts.bounce_walk).
 
     active: optional [N] bool — lanes whose paths already terminated.
-    Passed to the engines as the wavefront-compaction mask (north star:
-    path-state compaction): the bounce sort clusters dead lanes into tail
-    tiles which the packet kernel then skips wholesale, and the wavefront
-    folds them out in its first wind-down round."""
+    Passed to the walks as the wavefront-compaction mask: dead lanes fold
+    out in the first wind-down round."""
     n = orig.shape[0]
     is_stree = type(tree).__name__ == "ShardedTree"
     if opts.differentiable and scene.num_tris > 0:
         from clpathtracer_tpu.diff.grad import intersect_diff
-        out = intersect_diff(
+        out = dict(intersect_diff(
             scene, tree if opts.use_tree else None, orig, dir,
             tri_block=opts.tri_block, max_iters=opts.max_iters,
-            scene_axis=opts.scene_axis,
-            packet=(opts.intersector == "packet" and not is_stree),
-            # bounce rays keep the blocked-tile path unless the caller
-            # opts into Morton sorting (see RenderOptions.sort_bounces)
-            coherent=(coherent or not opts.sort_bounces),
-            shared_origin=shared_origin,
-            grid_dirs=grid_dirs,
-            bounce_grid=opts.bounce_grid,
-            packet_tile=opts.packet_tile,
-            image_shape=((opts.height, opts.width)
-                         if n == opts.width * opts.height else None),
-            active=active)
-        out = dict(out)
+            scene_axis=opts.scene_axis, coherent=coherent,
+            bounce_grid=opts.bounce_grid, active=active))
     elif is_stree and opts.use_tree and scene.num_tris > 0:
         # scene-parallel treelet ring (parallel/treelet.py): blocks rotate
         # with ppermute when opts.scene_axis names a live mesh axis, else
@@ -197,118 +140,28 @@ def intersect_scene(scene, tree, orig, dir, opts: RenderOptions,
     elif opts.use_tree and tree is not None and scene.num_tris > 0:
         v0, v1, v2 = scene.tri_verts()
         if tree.node_table is not None and opts.tri_block == 4:
-            # baked at build time when available; repacking gathers the
-            # whole triangle set every frame
-            quads = (tree.quads if getattr(tree, "quads", None) is not None
-                     else pack_quads(tree.tri_indices, v0, v1, v2))
-            from clpathtracer_tpu.ops.packet import (
-                packet_supported, traverse_packet)
-            from clpathtracer_tpu.ops.plist import (
-                plist_supported, traverse_plist)
-            shape_full = ((opts.height, opts.width)
-                          if orig.shape[0] == opts.width * opts.height
-                          else None)
-            if (opts.intersector == "packet" and coherent
-                    and shared_origin
-                    and (grid_dirs or jitter_px > 0.0) and active is None
-                    and plist_supported(getattr(tree, "mwin", None),
-                                        orig.shape[0], shape_full)):
-                # walk-free prepass-list engine (ops/plist.py): preferred
-                # for shared-origin primary frames when the tree carries
-                # Morton windows (attach_morton_windows) — prepass
-                # culls/sorts on the VPU, the kernel is a pure sorted
-                # stream at the dense-math ceiling. Jittered spp samples
-                # (jitter_px > 0) ride it too, with the frustum hulls
-                # conservatively dilated by that many pixels.
-                rec = traverse_plist(tree.mwin, orig, dir, shape_full,
-                                     grid=getattr(tree, "grid", None),
-                                     dilate_px=(0.0 if grid_dirs
-                                                else jitter_px),
-                                     resolve_chunk=opts.resolve_chunk)
-            elif (opts.intersector == "packet"
-                    and (coherent or not opts.sort_bounces)
-                    and packet_supported(tree, orig.shape[0],
-                                         opts.packet_tile)):
-                # Pallas packet tracer (ops/packet.py); pass the pixel-grid
-                # shape when the wavefront is a full frame so packets get
-                # square screen tiles. (With sort_bounces=False, bounce
-                # rays also land here in pixel-blocked order — measured
-                # 6x slower than the sorted branch below for diffuse
-                # bounces, and unsafe for chained mirror frames.)
-                shape = (opts.height, opts.width) if orig.shape[0] == (
-                    opts.width * opts.height) else None
-                rec = traverse_packet(tree, quads, orig, dir,
-                                      image_shape=shape,
-                                      tile=opts.packet_tile,
-                                      active=active,
-                                      precision=opts.precision,
-                                      shared_origin=shared_origin,
-                                      grid_dirs=grid_dirs)
-            elif (not coherent and getattr(tree, "grid", None) is not None
-                    and opts.bounce_grid):
+            if not coherent and tree.grid is not None and opts.bounce_grid:
                 # incoherent bounce wave on a fog-like scene with a grid
                 # attached (accel/sah.py::attach_grid): per-ray DDA
-                # nearest-hit — no packet/bundle cone to degrade, dead
-                # lanes fold out in the first wind-down round. Measured
-                # on the 1M fog bounce wave (probes/probe_grid.py, chip):
-                # 0.171 s vs the sorted bundle plist's 1.301 s, identical
-                # t sums — and Morton-sorting first LOSES (0.190 s): the
-                # DDA has no cone to tighten, so the sort only buys
-                # gather locality worth less than its own cost.
+                # nearest-hit, no root descent
                 from clpathtracer_tpu.ops.grid_walk import traverse_grid
                 rec = traverse_grid(tree.grid, orig, dir,
                                     max_iters=opts.max_iters,
-                                    compact=opts.compact,
-                                    active=active)
-            elif (not coherent and getattr(tree, "shadow", None) is not None
+                                    compact=opts.compact, active=active)
+            elif (not coherent and tree.shadow is not None
                     and opts.bounce_walk):
                 # incoherent bounce wave on a SURFACE scene with the
-                # walk-tuned small-leaf tree attached
-                # (accel/sah.py::attach_shadow_tree, path+NEE auto-pick):
-                # hemisphere-scattered rays mostly escape to the sky, so
-                # bundle hulls cull nothing while the per-ray rope walk
-                # exits a miss in a few hops. Measured on the 1M-terrain
-                # bounce wave (probes/probe_surface_bounce.py, chip):
-                # walk 814 ms vs bundle plist 912 / kd-walk packet ~2.4x
-                # worse, identical t sums; Morton-sorting the walk first
-                # LOSES (825 ms — per-step gathers, not coherence).
-                sq = (tree.shadow.quads
-                      if getattr(tree.shadow, "quads", None) is not None
-                      else quads)
-                rec = traverse_fast(tree.shadow, sq, orig, dir,
-                                    max_iters=opts.max_iters,
+                # small-leaf tree attached (accel/sah.py::
+                # attach_shadow_tree): hemisphere-scattered rays mostly
+                # escape, and the small leaves let a walk exit fast
+                rec = traverse_fast(tree.shadow, tree.shadow.quads, orig,
+                                    dir, max_iters=opts.max_iters,
                                     compact=opts.compact, active=active)
-            elif (opts.intersector == "packet" and opts.sort_bounces
-                  and (packet_supported(tree, orig.shape[0],
-                                        opts.packet_tile)
-                       or getattr(tree, "mwin", None) is not None)):
-                # scattered bounce rays: Morton/octant-sort the wavefront
-                # into coherent packets — dead lanes cluster at the tail
-                # where whole tiles skip — trace, restore order
-                # (ops/sort.py). With Morton windows attached the bundles
-                # ride the walk-free plist super-list engine
-                # (ops/plist.py::traverse_plist_bundle) instead of the
-                # kd-walk packet kernel.
-                from clpathtracer_tpu.ops.plist import (
-                    plist_bundle_supported, traverse_plist_bundle)
-                from clpathtracer_tpu.ops.sort import sort_rays
-                perm, inv = sort_rays(orig, dir, alive=active)
-                act_p = active[perm] if active is not None else None
-                if plist_bundle_supported(getattr(tree, "mwin", None),
-                                          orig.shape[0]):
-                    rec = traverse_plist_bundle(
-                        tree.mwin, orig[perm], dir[perm], active=act_p,
-                        resolve_chunk=opts.resolve_chunk)
-                else:
-                    rec = traverse_packet(tree, quads, orig[perm],
-                                          dir[perm],
-                                          tile=opts.packet_tile,
-                                          active=act_p,
-                                          precision=opts.precision)
-                rec = {k: v[inv] if v.shape[:1] == perm.shape else v
-                       for k, v in rec.items()}
             else:
-                # gather-packed fast path (ops/traverse_fast.py)
+                # baked at build time when available; repacking gathers
+                # the whole triangle set every frame
+                quads = (tree.quads if tree.quads is not None
+                         else pack_quads(tree.tri_indices, v0, v1, v2))
                 rec = traverse_fast(tree, quads, orig, dir,
                                     max_iters=opts.max_iters,
                                     compact=opts.compact, active=active)
@@ -319,15 +172,6 @@ def intersect_scene(scene, tree, orig, dir, opts: RenderOptions,
                            max_iters=opts.max_iters)
         out = {"hit": rec["hit"], "t": rec["t"], "tri": rec["tri"],
                "u": rec["u"], "v": rec["v"]}
-        # fused resolve rows (ops/plist.py::attach_resolve): the plist
-        # engines pre-resolved the shade attributes from the same row
-        # gather — pass them through so _surface skips its own
-        # shade_rows gather. Not used in differentiable mode (baked
-        # rows would detach material/normal gradients).
-        if not opts.differentiable:
-            for k in ("snormal", "salbedo", "semission"):
-                if k in rec:
-                    out[k] = rec[k]
     elif scene.num_tris > 0:
         rec = nearest_hit_bruteforce(scene, orig, dir)
         out = {"hit": rec["hit"], "t": rec["t"],
@@ -366,13 +210,7 @@ def _surface(scene, rec, orig, dir, opts=None):
     """Merge triangle/sphere attribute resolution for a hit record."""
     n = orig.shape[0]
     point = orig + rec["t"][:, None] * dir
-    if "snormal" in rec:
-        # fused resolve rows already carried the shade attributes out of
-        # the winner-resolution gather (ops/plist.py::_resolve_winners);
-        # intersect_scene only forwards them in non-differentiable mode
-        tri_at = {"normal": rec["snormal"], "albedo": rec["salbedo"],
-                  "emission": rec["semission"]}
-    elif scene.num_tris == 0:
+    if scene.num_tris == 0:
         # sphere-only / empty scene: no triangle rows to gather
         z = jnp.zeros((n, 3))
         tri_at = {"normal": z, "albedo": z, "emission": z}
@@ -399,7 +237,6 @@ def _surface(scene, rec, orig, dir, opts=None):
 
 
 def shade_normal(scene, tree, orig, dir, opts: RenderOptions,
-                 shared_origin: bool = False, grid_dirs: bool = False,
                  first_rec=None, first_coherent: bool = True,
                  first_active=None):
     """Reference-parity: hit → (normal+1)/2, miss → white.
@@ -411,16 +248,13 @@ def shade_normal(scene, tree, orig, dir, opts: RenderOptions,
     if rec is None:
         rec = intersect_scene(scene, tree, orig, dir, opts,
                               coherent=first_coherent,
-                              active=first_active,
-                              shared_origin=shared_origin,
-                              grid_dirs=grid_dirs)
+                              active=first_active)
     _, normal, _, _ = _surface(scene, rec, orig, dir, opts)
     bg = jnp.full_like(normal, opts.background)
     return jnp.where(rec["hit"][:, None], normal_color(normal), bg)
 
 
-def shade_mirror(scene, tree, orig, dir, opts: RenderOptions,
-                 shared_origin: bool = False, grid_dirs: bool = False):
+def shade_mirror(scene, tree, orig, dir, opts: RenderOptions):
     """The reference's intended mirror-bounce shading, made reachable.
 
     Per bounce (src/kernel.cl:399-417): col = (1-str)·col + str·normColor;
@@ -435,9 +269,7 @@ def shade_mirror(scene, tree, orig, dir, opts: RenderOptions,
     o, d = orig, dir
     for b in range(opts.bounces):
         rec = intersect_scene(scene, tree, o, d, opts, coherent=(b == 0),
-                              active=None if b == 0 else alive,
-                              shared_origin=shared_origin and b == 0,
-                              grid_dirs=grid_dirs and b == 0)
+                              active=None if b == 0 else alive)
         point, normal, _, _ = _surface(scene, rec, o, d, opts)
         hit = rec["hit"] & alive
         nc = normal_color(normal)
@@ -480,44 +312,9 @@ def _occluded(scene, tree, orig, dir, dist, opts: RenderOptions,
                              max_iters=opts.max_iters)
         occ = rec["hit"] & (rec["t"] < dd - 1e-3)
     elif (opts.use_tree and tree is not None
-            and getattr(tree, "node_table", None) is not None
-            and opts.tri_block == 4):
-        import os as _os
-
-        from clpathtracer_tpu.ops.plist import (plist_bundle_supported,
-                                                traverse_plist_bundle)
+            and tree.node_table is not None and opts.tri_block == 4):
         act = None if active is None else sg(active)
-        if (opts.sort_bounces
-                and _os.environ.get("CLPT_SHADOW_BUNDLE", "0") == "1"
-                and plist_bundle_supported(getattr(tree, "mwin", None),
-                                           o.shape[0])):
-            # MEASURED NEGATIVE, kept env-gated (off by default): shadow
-            # rays through the sorted-bundle plist engine with the
-            # t_max-seeded break. On the emissive soup it is 2.3x SLOWER
-            # per shadow wave than the t_max rope walk below (2.8s vs
-            # 1.2s per wave, chip, 512^2): shadow directions point at
-            # per-lane random light samples, so bundles get near-useless
-            # interval cones, while the fog's high occlusion lets the
-            # per-ray walk exit on the first nearby leaf.
-            # With nee_light_stride >= GATE the wavefront arrives in
-            # runs that SHARE a light sample — bundles must then follow
-            # the pixel-order runs (a Morton re-sort would remix rays
-            # across runs and destroy the converging-direction cones).
-            if opts.nee_light_stride >= 512:
-                rec = traverse_plist_bundle(tree.mwin, o, d, active=act,
-                                            t_max=dd,
-                                            resolve_chunk=opts.resolve_chunk)
-                occ = rec["hit"] & (rec["t"] < dd - 1e-3)
-            else:
-                from clpathtracer_tpu.ops.sort import sort_rays
-                perm, inv = sort_rays(o, d, alive=act)
-                rec = traverse_plist_bundle(
-                    tree.mwin, o[perm], d[perm],
-                    active=None if act is None else act[perm],
-                    t_max=dd[perm],
-                    resolve_chunk=opts.resolve_chunk)
-                occ = (rec["hit"] & (rec["t"] < dd[perm] - 1e-3))[inv]
-        elif getattr(tree, "grid", None) is not None:
+        if tree.grid is not None:
             # uniform-grid DDA occlusion (accel/grid.py, attach_grid):
             # preferred for fog-like scenes — the any-hit query settles
             # within a handful of cells with no root descent and no
@@ -528,23 +325,19 @@ def _occluded(scene, tree, orig, dir, dist, opts: RenderOptions,
                                 compact=opts.compact,
                                 t_max=dd - 1e-3, active=act,
                                 any_hit=True)
-            occ = rec["hit"]
         else:
-            # walk-tuned shadow tree when attached (accel/sah.py::
-            # attach_shadow_tree): the occlusion walk wants small leaves
-            # where the packet engines want fat ones — measured 3.9x
-            # with any_hit on the fog shadow wave
-            stree = getattr(tree, "shadow", None)
-            wtree = stree if stree is not None else tree
-            quads = (wtree.quads
-                     if getattr(wtree, "quads", None) is not None
+            # small-leaf shadow tree when attached (accel/sah.py::
+            # attach_shadow_tree): the occlusion walk's cost is quad
+            # steps until the first hit
+            wtree = tree.shadow if tree.shadow is not None else tree
+            quads = (wtree.quads if wtree.quads is not None
                      else pack_quads(wtree.tri_indices, *scene.tri_verts()))
             rec = traverse_fast(wtree, sg(quads), o, d,
                                 max_iters=opts.max_iters,
                                 compact=opts.compact,
                                 t_max=dd - 1e-3, active=act,
                                 any_hit=True)
-            occ = rec["hit"]
+        occ = rec["hit"]
     else:
         srec = intersect_scene(scene, tree, o, d, opts, coherent=False)
         occ = srec["hit"] & (srec["t"] < dd - 1e-3)
@@ -557,24 +350,16 @@ def _occluded(scene, tree, orig, dir, dist, opts: RenderOptions,
     return occ
 
 
-def _sample_light(scene, key, n, stride: int = 1):
+def _sample_light(scene, key, n):
     """Area-sample emissive triangles: returns (point [n,3], normal [n,3],
     emitted [n,3], pdf_area [n], any_light scalar bool).
 
     Faces weighted by luminance x area; barycentric-uniform point on the
     chosen face. pdf is per unit area so the G-term conversion applies.
-    stride > 1 draws one sample per run of `stride` consecutive lanes
-    (RenderOptions.nee_light_stride): correlated but unbiased — each
-    run's sample still comes from the exact emitter pdf.
     """
     if scene.num_tris == 0:
         z = jnp.zeros((n, 3))
         return z, z, z, jnp.ones((n,)), jnp.asarray(False)
-    if stride > 1:
-        m = -(-n // stride)
-        p, nrm, lemit, pdf_area, any_light = _sample_light(scene, key, m)
-        rep = lambda x: jnp.repeat(x, stride, axis=0)[:n]
-        return rep(p), rep(nrm), rep(lemit), rep(pdf_area), any_light
     v0, v1, v2 = scene.tri_verts()
     cross = vm.cross(v1 - v0, v2 - v0)
     area = 0.5 * vm.length(cross)
@@ -604,9 +389,8 @@ def _sample_light(scene, key, n, stride: int = 1):
 
 
 def shade_path(scene, tree, orig, dir, opts: RenderOptions, key,
-               shared_origin: bool = False, grid_dirs: bool = False,
-               jitter_px: float = 0.0, first_rec=None,
-               first_coherent: bool = True, first_active=None):
+               first_rec=None, first_coherent: bool = True,
+               first_active=None):
     """Lambertian path tracing with emissive surfaces.
 
     radiance += throughput · emission at each hit; throughput ·= albedo;
@@ -629,10 +413,7 @@ def shade_path(scene, tree, orig, dir, opts: RenderOptions, key,
             rec = intersect_scene(
                 scene, tree, o, d, opts,
                 coherent=(b == 0 and first_coherent),
-                active=(first_active if b == 0 else alive),
-                shared_origin=shared_origin and b == 0,
-                grid_dirs=grid_dirs and b == 0,
-                jitter_px=jitter_px if b == 0 else 0.0)
+                active=(first_active if b == 0 else alive))
         point, normal, albedo, emission = _surface(scene, rec, o, d, opts)
         # one-sided emitters: the surface emits from its front face only,
         # matching NEE's cos_l > 0 gate below so nee=True and nee=False
@@ -658,17 +439,15 @@ def shade_path(scene, tree, orig, dir, opts: RenderOptions, key,
             # light direction is albedo/pi right here — the albedo update
             # below belongs to the cosine-sampled continuation only
             key, kl = jax.random.split(key)
-            lp, ln, lemit, pdf_a, any_light = _sample_light(
-                scene, kl, n, stride=opts.nee_light_stride)
+            lp, ln, lemit, pdf_a, any_light = _sample_light(scene, kl, n)
             to_l = lp - point
             dist2 = jnp.maximum(vm.length_squared(to_l), 1e-12)
             dist = jnp.sqrt(dist2)
             wi = to_l / dist[:, None]
             # Sanitize the shadow directions unconditionally: on a scene
             # with zero emitters _sample_light's face choice is garbage
-            # (all-zero weights), and any non-finite direction fed to the
-            # traversal is a device hazard (round-2 known issue: emitterless
-            # terrain + NEE crashed the TPU worker).
+            # (all-zero weights), and a non-finite direction must never
+            # reach the traversal.
             wi_ok = jnp.all(jnp.isfinite(wi), axis=-1)
             safe = jnp.zeros_like(wi).at[:, 1].set(1.0)
             wi = jnp.where(wi_ok[:, None], wi, safe)
@@ -718,9 +497,7 @@ def _edge_band(m, rows, cols):
     return jnp.maximum(g, 1e-4).reshape(-1)
 
 
-def shade_edgeaware(scene, tree, orig, dir, opts: RenderOptions, key,
-                    shared_origin: bool = False, grid_dirs: bool = False,
-                    jitter_px: float = 0.0):
+def shade_edgeaware(scene, tree, orig, dir, opts: RenderOptions, key):
     """Silhouette-reparameterized shading (normal and path modes).
 
     The hit's min-barycentric m is a differentiable distance to the
@@ -738,9 +515,7 @@ def shade_edgeaware(scene, tree, orig, dir, opts: RenderOptions, key,
     band then wraps at block edges, a one-row approximation)."""
     n = orig.shape[0]
     cols = opts.width if n % opts.width == 0 else n
-    rec1 = intersect_scene(scene, tree, orig, dir, opts,
-                           shared_origin=shared_origin,
-                           grid_dirs=grid_dirs, jitter_px=jitter_px)
+    rec1 = intersect_scene(scene, tree, orig, dir, opts)
     u, v = rec1["u"], rec1["v"]
     m = jnp.where(rec1["tri"] >= 0,
                   jnp.minimum(jnp.minimum(u, v), 1.0 - u - v), 1.0)
@@ -758,9 +533,7 @@ def shade_edgeaware(scene, tree, orig, dir, opts: RenderOptions, key,
             key = jax.random.PRNGKey(0)
         # same key for both passes: common random numbers keep the
         # blend's variance at the (c1 - c2) difference, not their sum
-        c1 = shade_path(scene, tree, orig, dir, opts, key,
-                        shared_origin=shared_origin, grid_dirs=grid_dirs,
-                        jitter_px=jitter_px, first_rec=rec1)
+        c1 = shade_path(scene, tree, orig, dir, opts, key, first_rec=rec1)
         c2 = shade_path(scene, tree, o2, dir, opts, key,
                         first_coherent=False, first_active=rec1["hit"])
     else:
@@ -777,34 +550,18 @@ def shade_edgeaware(scene, tree, orig, dir, opts: RenderOptions, key,
 # ---------------------------------------------------------------------------
 
 
-def render_rays(scene, tree, orig, dir, opts: RenderOptions, key=None,
-                shared_origin: bool = False, grid_dirs: bool = False,
-                jitter_px: float = 0.0):
-    # grid_dirs: the rays are the UNJITTERED pixel-grid primaries of
-    # (opts.height, opts.width) — enables the corner-hull frustum/strip
-    # culls in the packet engine, which per-pixel jitter would break
-    # (ADVICE r2); shared_origin alone only enables the SO row math.
-    # jitter_px: the rays are pixel-grid primaries with up to that many
-    # pixels of subpixel jitter (spp sampling) — the plist engine still
-    # applies, with its frustum hulls conservatively dilated.
+def render_rays(scene, tree, orig, dir, opts: RenderOptions, key=None):
+    """Shade a wavefront of camera rays: [N, 3] colour or radiance."""
     if opts.edge_aware and opts.mode in ("normal", "path"):
-        return shade_edgeaware(scene, tree, orig, dir, opts, key,
-                               shared_origin=shared_origin,
-                               grid_dirs=grid_dirs, jitter_px=jitter_px)
+        return shade_edgeaware(scene, tree, orig, dir, opts, key)
     if opts.mode == "normal":
-        return shade_normal(scene, tree, orig, dir, opts,
-                            shared_origin=shared_origin,
-                            grid_dirs=grid_dirs)
+        return shade_normal(scene, tree, orig, dir, opts)
     if opts.mode == "mirror":
-        return shade_mirror(scene, tree, orig, dir, opts,
-                            shared_origin=shared_origin,
-                            grid_dirs=grid_dirs)
+        return shade_mirror(scene, tree, orig, dir, opts)
     if opts.mode == "path":
         if key is None:
             key = jax.random.PRNGKey(0)
-        return shade_path(scene, tree, orig, dir, opts, key,
-                          shared_origin=shared_origin,
-                          grid_dirs=grid_dirs, jitter_px=jitter_px)
+        return shade_path(scene, tree, orig, dir, opts, key)
     raise ValueError(f"unknown mode {opts.mode!r}")
 
 
@@ -824,18 +581,10 @@ def render_image(scene, camera, opts: RenderOptions, tree=None, key=None):
             jitter = jax.random.uniform(kj, (1, n, 2))
             o, d = generate_rays_jittered(cam_inv, opts.width, opts.height,
                                           jitter)
-            # jittered per-pixel samples: NOT grid_dirs (corner-hull
-            # culls would drop edge samples outside the corners' hull),
-            # but the plist engine still applies with its hulls dilated
-            # by 3 px: jitter is < 1 px, the corner-lane position hull
-            # under-covers the block by < 1 px per side, and 1 px of
-            # slack on top (ops/plist.py::_win_keys dilate_px)
-            return render_rays(scene, tree, o[0], d[0], opts, ks,
-                               shared_origin=True, jitter_px=3.0)
+            return render_rays(scene, tree, o[0], d[0], opts, ks)
 
         img = jax.lax.map(one_sample, keys).mean(axis=0)
     else:
         orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        img = render_rays(scene, tree, orig, dir, opts, key,
-                          shared_origin=True, grid_dirs=True)
+        img = render_rays(scene, tree, orig, dir, opts, key)
     return img.reshape(opts.height, opts.width, 3)

@@ -22,8 +22,7 @@ CACHE_SUFFIX = ".kd.npz"  # the reference's "<model>.kd" (src/model.c:22)
 
 _TREE_FIELDS = ("node_min", "node_max", "is_leaf", "split_axis",
                 "split_value", "child_lo", "child_hi", "leaf_start",
-                "leaf_count", "ropes", "tri_indices", "node_table", "quads",
-                "wide_table", "chunk_start", "chunk_bnd")
+                "leaf_count", "ropes", "tri_indices", "node_table", "quads")
 _SCENE_FIELDS = ("verts", "faces", "normals", "albedo", "emission",
                  "sphere_pos", "sphere_radius", "sphere_albedo",
                  "sphere_emission", "shade_rows")
@@ -73,15 +72,6 @@ def load_scene_cache(path: str) -> Tuple[Scene, FlatKdTree]:
         tree = FlatKdTree(**{f: jnp.asarray(z["tree_" + f])
                              for f in _TREE_FIELDS
                              if "tree_" + f in z})
-        # static metadata (SMEM-layout safety checks in ops/packet.py):
-        # a cache hit implies build_params matched, so any stored chunk
-        # tables were built under the CURRENT process's CHUNK_ROWS
-        tree = tree.replace(
-            max_leaf_tris=int(np.asarray(z["tree_leaf_count"])
-                              .max(initial=0)))
-        if tree.chunk_start is not None:
-            from clpathtracer_tpu.ops.packet import CHUNK_ROWS
-            tree = tree.replace(chunk_rows=CHUNK_ROWS)
         scene = Scene(**{f: jnp.asarray(z["scene_" + f])
                          for f in _SCENE_FIELDS
                          if "scene_" + f in z})
@@ -109,7 +99,7 @@ def load_model(path: str, tri_block: int = 4, max_depth: int = 24,
     if path.endswith(".kd"):
         # the reference's own binary cache format (scene/kdformat.py) —
         # import geometry + its exact tree, then rebuild a packed tree for
-        # the fast/packet engines
+        # the gather-packed walk
         from clpathtracer_tpu.scene.kdformat import load_reference_kd
         scene, _ref_tree = load_reference_kd(path)
         scene = scene.bake_shading()
@@ -121,12 +111,8 @@ def load_model(path: str, tri_block: int = 4, max_depth: int = 24,
             f"{path}: unsupported file type; supported: .obj, .kd, "
             f"{CACHE_SUFFIX}")
 
-    from clpathtracer_tpu.ops.packet import CHUNK_ROWS
     params = {"tri_block": tri_block, "max_depth": max_depth,
-              "leaf_size": leaf_size,
-              # chunk-culling window grid is baked into the cached tree
-              # (accel/sah.py attach_chunk_info) — invalidate on retune
-              "chunk_rows": CHUNK_ROWS}
+              "leaf_size": leaf_size}
     cache = path[:-len(".obj")] + CACHE_SUFFIX
     if use_cache and os.path.exists(cache) and (
             os.path.getmtime(cache) >= os.path.getmtime(path)):

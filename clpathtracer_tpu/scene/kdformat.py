@@ -17,7 +17,7 @@ followed by `count` elements —
 
 This module reads those files into Scene + FlatKdTree (the reference
 wavefront engine consumes the imported tree directly; tri_block=1 layout,
-so the fast/packet engines rebuild if wanted) and writes our trees back
+so the gather-packed walk rebuilds if wanted) and writes our trees back
 out so the reference renderer can load caches produced here.
 """
 
@@ -41,7 +41,7 @@ def load_reference_kd(path: str):
 
     The tree is the reference's exact structure (compact tri_block=1
     layout, ropes included); pair it with the reference wavefront engine,
-    or rebuild with build_kd_tree for the packed/packet engines.
+    or rebuild with build_kd_tree for the gather-packed walk.
     """
     from clpathtracer_tpu.accel.sah import FlatKdTree
     from clpathtracer_tpu.scene.scene import Scene
@@ -92,7 +92,6 @@ def load_reference_kd(path: str):
         leaf_count=jnp.asarray(leaf_count),
         ropes=jnp.asarray(ropes),
         tri_indices=jnp.asarray(tri_indices.astype(np.int32)),
-        max_leaf_tris=int(leaf_count.max(initial=0)),
     )
     return scene, tree
 

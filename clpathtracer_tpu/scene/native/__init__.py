@@ -1,9 +1,10 @@
 """Native (C++) Wavefront OBJ parser, loaded via ctypes.
 
 The reference parses OBJ in C (vendored tinyobj, src/model.c:10-11); this
-is the TPU framework's native equivalent for the same hot path —
+is this framework's native equivalent for the same hot path —
 geometry-record scanning — compiled on first use with g++ (no pip, no
-pybind11), with the numbers handed back as SoA numpy arrays. Material
+pybind11) into a library named by a hash of the source, with the
+numbers handed back as SoA numpy arrays. Material
 resolution (mtllib file IO, Kd/Ke lookup) stays in Python: it touches the
 filesystem and runs once per material, not per line.
 
@@ -14,6 +15,7 @@ and use scene/objparser.py's pure-Python parser instead.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -22,7 +24,6 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "obj_native.cpp")
-_SO = os.path.join(_DIR, "_obj_native.so")
 _lock = threading.Lock()
 _lib = None
 
@@ -31,12 +32,26 @@ class NativeObjError(RuntimeError):
     pass
 
 
-def _compile() -> None:
-    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", _SO]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+def _so_path() -> str:
+    """The library built from the source as it is now: its file name
+    carries a hash of the .cpp, so a library built from any other version
+    of the source is never loaded."""
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_DIR, f"_obj_native.{digest}.so")
+
+
+def _compile(so: str) -> None:
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", tmp]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:  # no compiler on this machine
+        raise NativeObjError(f"native obj parser compile failed: {e}") from e
     if proc.returncode != 0:
         raise NativeObjError(
             f"native obj parser compile failed:\n{proc.stderr[-2000:]}")
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
 
 
 def _load():
@@ -46,10 +61,10 @@ def _load():
             return _lib
         if os.environ.get("CLPT_NO_NATIVE"):
             raise NativeObjError("disabled via CLPT_NO_NATIVE")
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            _compile()
-        lib = ctypes.CDLL(_SO)
+        so = _so_path()
+        if not os.path.exists(so):
+            _compile(so)
+        lib = ctypes.CDLL(so)
         lib.obj_parse.restype = ctypes.c_void_p
         lib.obj_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64]
         lib.obj_error.restype = ctypes.c_char_p

@@ -1,6 +1,6 @@
 """Scene container: flat SoA device arrays as a differentiable pytree.
 
-The TPU-native analogue of the reference's `kd` SoA container + `Object`
+The device-array analogue of the reference's `kd` SoA container + `Object`
 list (reference: include/kd_tree.h:10-16, include/object.h:9-22): vertices,
 per-corner index triples, normals — plus what the reference stubbed out but
 never finished: real sphere primitives (its sphere pipeline was dead code,
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from clpathtracer_tpu.utils import struct
 
 
 @struct.dataclass

@@ -8,7 +8,13 @@ policy (flags/env, never prompts — SURVEY §5 config).
 
 from __future__ import annotations
 
+import os
+
 import jax
+
+# the checkout root: the directory that holds the package
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def device_inventory() -> list:
@@ -42,6 +48,21 @@ def pick_device(platform: str = None, index: int = 0):
 
 
 def host_cpu():
-    """The host CPU device — where scene/tree construction should live
-    when the default device is remote (eager ops round-trip the network)."""
+    """The host CPU device (for host-side work pinned off the
+    accelerator with jax.default_device)."""
     return jax.local_devices(backend="cpu")[0]
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    With JAX_COMPILATION_CACHE_DIR set, JAX reads that directory itself
+    and nothing else is set here. Otherwise the cache goes to
+    `<checkout>/.jax_cache` (listed in .gitignore). A fixed path matters:
+    it is part of the cache key, so a moving directory never hits."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(_CHECKOUT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -1,7 +1,7 @@
 """Minimal dependency-free PNG writer.
 
 The reference displays frames through an OpenGL textured quad
-(src/GLState.c:91-111); a TPU render farm has no window, so the
+(src/GLState.c:91-111); an offline renderer has no window, so the
 presentation layer becomes: device array → tone map → PNG on disk.
 Pure-stdlib encoder (zlib + struct): 8-bit RGB/RGBA, no filtering
 (filter type 0 per scanline).

@@ -6,10 +6,10 @@ capability axis the reference (forward-only OpenCL viewer) doesn't have.
 are too, but only along directions that change visible shading — the
 FD-validated vertex gradients live in tests/test_grad.py.)
 
-Runs on the simulated 8-device CPU mesh so the gradient all-reduce and
-row sharding are exercised exactly as they would be on a TPU pod slice.
+Runs on every local device (rows-sharded pixels, gradient all-reduce);
+with --cpu, on a simulated 8-device CPU mesh.
 
-Usage: python examples/inverse_rendering.py
+Usage: python examples/inverse_rendering.py [--cpu]
 """
 
 import os
@@ -22,7 +22,9 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if "--cpu" in sys.argv:  # as the CLI: pin to the CPU only when asked
+    sys.argv.remove("--cpu")
+    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
@@ -34,9 +36,11 @@ from clpathtracer_tpu.parallel import default_mesh, make_train_step  # noqa: E40
 from clpathtracer_tpu.render.integrator import (  # noqa: E402
     RenderOptions, render_image)
 from clpathtracer_tpu.scene.procedural import cornell_box  # noqa: E402
+from clpathtracer_tpu.utils.device import enable_compile_cache  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     scene = cornell_box(light=True)
     v0, v1, v2 = scene.tri_verts()
     tv = np.stack([np.asarray(v0), np.asarray(v1), np.asarray(v2)], 1)
@@ -51,7 +55,7 @@ def main():
     truth = np.asarray(scene.albedo)
     grey = scene.replace(albedo=np.full_like(truth, 0.5))
 
-    mesh = default_mesh()  # (rows, scene) over all 8 simulated devices
+    mesh = default_mesh()  # (rows, scene) over all local devices
     step, init = make_train_step(grey, opts, mesh, optax.adam(3e-2),
                                  tree=tree, param_fields=("albedo",))
     state = init()

@@ -4,12 +4,14 @@ For scenes too large to replicate per chip: triangles Morton-partition
 into treelet blocks that live sharded over the mesh "scene" axis; during
 intersection the blocks rotate around the ring with `ppermute`, the
 collective overlapped with local traversal (parallel/treelet.py). This
-example runs on the simulated 8-device CPU mesh and checks the image is
-bit-identical to the replicated single-tree render.
+example shards the scene over up to 4 local devices (with --cpu, over a
+simulated 8-device CPU mesh) and checks the image is bit-identical to
+the replicated single-tree render.
 
-Usage: python examples/scene_parallel_ring.py
+Usage: python examples/scene_parallel_ring.py [--cpu]
 """
 
+import math
 import os
 import sys
 
@@ -20,7 +22,9 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if "--cpu" in sys.argv:  # as the CLI: pin to the CPU only when asked
+    sys.argv.remove("--cpu")
+    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
@@ -33,9 +37,11 @@ from clpathtracer_tpu.parallel.treelet import (  # noqa: E402
 from clpathtracer_tpu.render.integrator import (  # noqa: E402
     RenderOptions, render_image)
 from clpathtracer_tpu.scene.procedural import random_tri_soup  # noqa: E402
+from clpathtracer_tpu.utils.device import enable_compile_cache  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     scene = random_tri_soup(20_000, seed=2, extent=2.0, tri_size=0.05)
     v0, v1, v2 = scene.tri_verts()
     tv = np.stack([np.asarray(v0), np.asarray(v1), np.asarray(v2)], 1)
@@ -46,10 +52,11 @@ def main():
     tree = build_kd_tree(tv, tri_block=4)
     ref = np.asarray(render_image(scene, cam, opts, tree=tree))
 
-    # 4-way scene shard on a (rows=2, scene=4) mesh: each device holds a
-    # quarter of the acceleration data + geometry
-    mesh = default_mesh(scene_parallel=4)
-    stree = build_sharded_tree(tv, n_shards=4)
+    # up to 4-way scene shard (rows=2, scene=4 on 8 devices): each device
+    # holds its share of the acceleration data + geometry
+    shards = math.gcd(4, len(jax.devices()))
+    mesh = default_mesh(scene_parallel=shards)
+    stree = build_sharded_tree(tv, n_shards=shards)
     stree = jax.device_put(stree, NamedSharding(mesh, P("scene")))
     render = make_treelet_renderer(opts, mesh)
     img = np.asarray(render(stree, scene, cam, None))

@@ -10,7 +10,7 @@ boundary term (diff/edges.py rationale; implementation:
 render/integrator.py::shade_edgeaware) and the standard train step
 moves the occluder.
 
-Usage: python examples/silhouette_fitting.py
+Usage: python examples/silhouette_fitting.py [--cpu]
 """
 
 import dataclasses
@@ -21,7 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if "--cpu" in sys.argv:  # as the CLI: pin to the CPU only when asked
+    sys.argv.remove("--cpu")
+    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -33,6 +35,7 @@ from clpathtracer_tpu.render.integrator import (  # noqa: E402
     RenderOptions, render_image)
 from clpathtracer_tpu.scene.procedural import _quad  # noqa: E402
 from clpathtracer_tpu.scene.scene import Scene  # noqa: E402
+from clpathtracer_tpu.utils.device import enable_compile_cache  # noqa: E402
 
 
 def occluder_scene(dz):
@@ -53,6 +56,7 @@ def occluder_scene(dz):
 
 
 def main():
+    enable_compile_cache()
     opts = dataclasses.replace(
         RenderOptions(width=48, height=48, mode="normal", use_tree=False,
                       background=1.0),

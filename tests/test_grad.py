@@ -138,65 +138,6 @@ class TestTreeVsBruteforceGrad:
                                    rtol=1e-4, atol=1e-6)
 
 
-class TestPacketForwardGrad:
-    """Differentiable mode with intersector="packet" (VERDICT r1 #7): the
-    Pallas packet engine supplies the detached topology, gradients still
-    FD-validate — inverse rendering no longer inherits the slowest
-    intersector."""
-
-    def test_vertex_grad_matches_fd_packet(self):
-        scene = cornell_box(light=False)
-        tree = _tree_for(scene)
-        cam = Camera.create(position=[0.0, 0.0, -1.0], forward=[0, 0, 1.0])
-        opts = RenderOptions(width=32, height=32, mode="normal",
-                             use_tree=True, differentiable=True,
-                             intersector="packet", packet_tile=256)
-
-        def loss_fn(v0):
-            verts = scene.verts.at[0].set(v0)
-            s = scene.with_verts(verts)
-            img = render_image(s, cam, opts, tree=tree)
-            return jnp.mean(img[13:18, 13:18])
-
-        v0 = scene.verts[0]
-        g = jax.grad(loss_fn)(v0)
-        fd = fd_grad(lambda v: loss_fn(jnp.asarray(v, jnp.float32)),
-                     np.array(v0, np.float64), eps=1e-3)
-        assert np.isfinite(np.asarray(g)).all()
-        assert np.abs(fd).max() > 1e-4
-        np.testing.assert_allclose(np.asarray(g), fd, rtol=0.05, atol=2e-4)
-
-    def test_packet_forward_matches_wavefront_grads(self):
-        """Same gradients from packet-forward and wavefront-forward
-        differentiable renders (identical detached topology)."""
-        scene = cornell_box(light=True)
-        tree = _tree_for(scene)
-        cam = Camera.create(position=[0.0, 0.0, -1.0], forward=[0, 0, 1.0])
-        key = jax.random.PRNGKey(3)
-        base = dict(width=32, height=32, mode="path", bounces=2, spp=1,
-                    background=0.0, use_tree=True, differentiable=True)
-
-        def make_loss(opts):
-            def loss_fn(albedo):
-                s = scene.replace(albedo=albedo)
-                img = render_image(s, cam, opts, tree=tree, key=key)
-                # interior crop: wall-corner pixels (image border) tie at
-                # exactly equal t across DIFFERENT quads and legitimately
-                # resolve differently per engine
-                return jnp.mean(img[4:28, 4:28])
-            return loss_fn
-
-        g_wf = jax.grad(make_loss(RenderOptions(**base)))(scene.albedo)
-        g_pk = jax.grad(make_loss(RenderOptions(
-            **base, intersector="packet", packet_tile=256)))(scene.albedo)
-        # remaining ties sit on quad diagonals: both triangles belong to
-        # the same quad/material, so per-quad gradient sums are
-        # tie-invariant and must match tightly
-        wf = np.asarray(g_wf).reshape(-1, 2, 3).sum(axis=1)
-        pk = np.asarray(g_pk).reshape(-1, 2, 3).sum(axis=1)
-        np.testing.assert_allclose(wf, pk, rtol=1e-4, atol=1e-5)
-
-
 class TestSilhouetteGrad:
     """Edge-aware gradients (diff/edges.py): the case diff/grad.py scopes
     out. An occluder quad floats in front of a backdrop; the loss crop
@@ -416,8 +357,7 @@ class TestGridForwardGrad:
         # term, so gradients reach every visible triangle
         opts = RenderOptions(width=24, height=24, mode="path", bounces=2,
                              spp=1, background=0.0, nee=True,
-                             use_tree=True, differentiable=True,
-                             intersector="packet", packet_tile=64)
+                             use_tree=True, differentiable=True)
         key = jax.random.PRNGKey(5)
         alb0 = np.asarray(scene.albedo, np.float64)
 
@@ -443,7 +383,7 @@ class TestGridForwardGrad:
 def test_edge_aware_composes_with_spp_path():
     """RenderOptions.edge_aware under the spp>1 path route: each
     jittered sample runs the silhouette blend (render_image ->
-    one_sample -> shade_edgeaware with jitter_px) — the render must be
+    one_sample -> shade_edgeaware) — the render must be
     finite and its vertex gradient must carry silhouette signal."""
     import dataclasses
 

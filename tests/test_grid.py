@@ -180,12 +180,11 @@ def test_inline_table_build_invariants():
 
 def test_crack_rays_grid_beats_kd_walk():
     """Rays with an exactly-zero direction component sitting exactly on a
-    split plane: the reference's rope walk (src/kernel.cl:325-330 point-
-    location descent — our ops/traverse(_fast) reproduce it exactly)
-    descends one side of the plane and, with dir along the plane, can
-    never rope-hop across it — it MISSES triangles straddling the crack.
-    The DDA grid walk has no such plane and matches the brute-force
-    oracle. Documents the divergence: the grid is *more* correct here.
+    split plane ("crack rays"): their slab distance is 0 * inf = NaN.
+    The reference's rope walk (src/kernel.cl:325-330) let the NaN in and
+    missed them; the walks now treat that slab as unbounded
+    (ops/intersect.py::slab_t). Both the DDA grid walk and the kd walk
+    must match the brute-force oracle on them.
     """
     from clpathtracer_tpu.ops.intersect import nearest_hit_bruteforce
     scene = terrain_mesh(2000, seed=0, extent=3.0)
@@ -200,10 +199,13 @@ def test_crack_rays_grid_beats_kd_walk():
     np.testing.assert_allclose(np.asarray(bf["t"])[bh],
                                np.asarray(rec["t"])[bh],
                                rtol=1e-5, atol=1e-6)
-    # the kd walk's misses are exactly the crack rays (dir.x == 0 at x=0)
-    missed = bh & ~np.asarray(kd["hit"])
-    assert missed.sum() > 0  # the quirk is real on this fixture
-    assert np.all(np.asarray(dir)[missed][:, 0] == 0.0)
+    # the fixture has crack rays (dir.x == 0 at x=0) that hit...
+    crack = bh & (np.asarray(dir)[:, 0] == 0.0)
+    assert crack.sum() > 0
+    # ...and the kd walk no longer misses them
+    np.testing.assert_array_equal(bh, np.asarray(kd["hit"]))
+    np.testing.assert_allclose(np.asarray(bf["t"])[bh],
+                               np.asarray(kd["t"])[bh], rtol=1e-5)
 
 
 @pytest.mark.parametrize("layout", ["split", "inline"])

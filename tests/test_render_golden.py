@@ -261,29 +261,6 @@ class TestNee:
         diff = np.abs(img_nee - img_bsdf).mean()
         assert diff < 0.15, diff
 
-    def test_nee_shared_light_stride_unbiased(self):
-        """nee_light_stride > 1 (one light sample per run of lanes —
-        the coherent-shadow-bundle estimator) must converge to the
-        per-lane estimator's mean: the shared sample is still drawn
-        from the exact emitter pdf, only the within-run correlation
-        changes."""
-        scene = cornell_box(light=True)
-        cam = Camera.create(position=[0.0, 0.0, -1.5],
-                            forward=[0.0, 0.0, 1.0])
-        base = dict(width=16, height=16, mode="path", bounces=2,
-                    nee=True, background=0.0)
-
-        def mean_img(stride, keys=24):
-            opts = RenderOptions(**base, nee_light_stride=stride)
-            acc = 0.0
-            for i in range(keys):
-                acc = acc + np.asarray(render_image(
-                    scene, cam, opts, key=jax.random.PRNGKey(100 + i)))
-            return acc / keys
-
-        a, b = mean_img(1), mean_img(8)
-        np.testing.assert_allclose(b.mean(), a.mean(), rtol=0.1)
-
     def test_nee_unbiased_low_albedo(self):
         """Regression (ADVICE r1): with albedo 0.25 the old NEE path applied
         the hit albedo twice, biasing the mean ~4x dark — the high-albedo
@@ -328,24 +305,24 @@ class TestNee:
             assert img.max() < 1.0, (nee, img.max())
 
     def test_nee_no_lights_is_noop(self):
-        """Zero-emitter NEE regression (round-2 known issue: emitterless
-        terrain + NEE crashed the TPU worker). The entire shadow traversal
-        is now gated on any_light via lax.cond and the shadow directions
-        sanitized; with no emitters NEE must contribute exactly nothing
-        and the render stays finite through both intersectors (the packet
-        path is the configuration that crashed the device)."""
+        """Zero-emitter NEE regression: the entire shadow traversal is
+        gated on any_light via lax.cond and the shadow directions
+        sanitized; with no emitters NEE must contribute nothing and the
+        render stays finite through both the wavefront walk and the
+        small-leaf shadow tree's walk."""
         scene = cornell_box(light=False)
         v0, v1, v2 = scene.tri_verts()
         tv = np.stack([np.asarray(v0), np.asarray(v1), np.asarray(v2)], 1)
         tree = build_kd_tree(tv, tri_block=4)
         cam = Camera.create(position=[0.0, 0.0, -1.0], forward=[0, 0, 1.0])
-        for intersector in ("wavefront", "packet"):
-            opts = RenderOptions(width=8, height=8, mode="path", bounces=2,
-                                 background=0.5, nee=True,
-                                 intersector=intersector, packet_tile=64)
-            img = np.asarray(render_image(scene, cam, opts, tree=tree,
+        from clpathtracer_tpu.accel.sah import attach_shadow_tree
+        walked = attach_shadow_tree(tree, tv)
+        opts = RenderOptions(width=8, height=8, mode="path", bounces=2,
+                             background=0.5, nee=True)
+        for name, t in (("wavefront", tree), ("shadow-tree", walked)):
+            img = np.asarray(render_image(scene, cam, opts, tree=t,
                                           key=jax.random.PRNGKey(0)))
-            assert np.isfinite(img).all(), intersector
+            assert np.isfinite(img).all(), name
 
 
 class TestBaselineConfig1:
@@ -379,7 +356,7 @@ def test_shadow_tree_image_parity():
     not change the path+NEE image at all — the any_hit occlusion boolean
     is exact regardless of tree shape. With the bounce-walk reroute
     disabled the images are bit-equal; with it on (the default — bounce
-    nearest-hits ride the same walk, probes/probe_surface_bounce.py)
+    nearest-hits ride the same walk)
     they may differ only by exact-t tie winners, so hit structure and
     radiance stay close."""
     from clpathtracer_tpu.accel.sah import attach_shadow_tree

@@ -204,13 +204,15 @@ def test_walk_table_exact_parity(make, compact):
                                       np.asarray(bn[key]), err_msg=key)
 
 
-@pytest.mark.parametrize("env,chunk", [("CLPT_WALK_CHUNK", "1024")])
+@pytest.mark.parametrize("env,chunk", [("CLPT_WALK_CHUNK", "1024"),
+                                       ("CLPT_WALK_CHUNK", "512"),
+                                       ("CLPT_WALK_CHUNK", "2048")])
 def test_wave_chunking_parity(monkeypatch, env, chunk):
-    """chunk_wave (the default-on 64k chunking of big waves) must be
-    bit-identical to the full-width walk, including per-chunk t_max /
-    active slicing, SCALAR t_max broadcasting, and any_hit. Production
-    waves are 262k lanes; tests force a small chunk on a 4096-lane
-    wave so the path stays covered."""
+    """chunk_wave (the chunking of big waves) must be bit-identical to
+    the full-width walk, including per-chunk t_max / active slicing,
+    SCALAR t_max broadcasting, and any_hit. Production waves are 262k
+    lanes; tests force small chunks on a 4096-lane wave so the path
+    stays covered."""
     from clpathtracer_tpu.ops.grid_walk import traverse_grid
     from clpathtracer_tpu.accel.grid import build_grid
 
@@ -253,3 +255,54 @@ def test_wave_chunking_parity(monkeypatch, env, chunk):
     for key in ("hit", "t", "tri", "u", "v"):
         np.testing.assert_array_equal(np.asarray(a[key]),
                                       np.asarray(b[key]), err_msg=key)
+
+
+def _plane_rays(tree, tv, axis, n=256, seed=0):
+    """Rays lying exactly in the tree's split planes on `axis`: origin on
+    the plane, direction component along `axis` exactly 0."""
+    leaf = np.asarray(tree.is_leaf)
+    planes = np.unique(np.asarray(tree.split_value)[
+        ~leaf & (np.asarray(tree.split_axis) == axis)])
+    lo, hi = tv.min((0, 1)), tv.max((0, 1))
+    inner = planes[(planes > lo[axis]) & (planes < hi[axis])]
+    r = np.random.default_rng(seed)
+    o = r.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    o[:, axis] = inner[r.integers(0, inner.size, n)]
+    d = r.normal(size=(n, 3))
+    d[:, axis] = 0.0
+    if axis != 1:
+        d[:, 1] = -np.abs(d[:, 1]) - 0.5  # mostly down onto the surface
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d.astype(np.float32)
+    d[:, axis] = 0.0
+    return jnp.asarray(o), jnp.asarray(d)
+
+
+@pytest.mark.parametrize("walk", ["fast", "shadow", "reference"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_rays_in_split_planes_match_oracle(axis, walk):
+    """A ray lying exactly in a split plane has a zero direction
+    component, so its slab distance there is 0 * inf = NaN; the walks
+    treat the slab as unbounded (ops/intersect.py::slab_t) and must find
+    the same hits as the oracle. Regression: such rays used to miss."""
+    from chip_smoke import compare_nearest
+    from clpathtracer_tpu.accel.sah import attach_shadow_tree
+    from clpathtracer_tpu.ops.intersect import nearest_hit_bruteforce
+    from clpathtracer_tpu.scene.procedural import terrain_mesh
+
+    scene = terrain_mesh(20000, seed=1, extent=10.0)
+    v0, v1, v2 = scene.tri_verts()
+    tv = np.stack([np.asarray(v0), np.asarray(v1), np.asarray(v2)], 1)
+    tree = build_kd_tree(tv, tri_block=4)
+    if walk == "shadow":
+        tree = attach_shadow_tree(tree, tv).shadow
+    o, d = _plane_rays(tree, tv, axis)
+    if walk == "reference":
+        rec = traverse(tree, PackedTris.pack(tree, v0, v1, v2), o, d,
+                       tri_block=4)
+    else:
+        rec = traverse_fast(tree, tree.quads, o, d)
+    ref = nearest_hit_bruteforce(scene, o, d)
+    assert np.asarray(ref["hit"]).sum() > 50
+    out = compare_nearest(f"axis {axis} {walk}", rec, ref)
+    assert out["mask_mismatch"] == 0

@@ -142,8 +142,7 @@ class TestTreeletRing:
         stree = build_sharded_tree(tv, n_shards=2)
         cam = Camera.create(position=[0.0, 0.0, -4.0],
                             forward=[0.0, 0.0, 1.0])
-        opts = RenderOptions(width=32, height=32, mode="normal",
-                             intersector="wavefront")
+        opts = RenderOptions(width=32, height=32, mode="normal")
         ref = np.asarray(render_image(scene, cam, opts, tree=tree))
         mesh = default_mesh(scene_parallel=2)
         render = make_treelet_renderer(opts, mesh)
@@ -186,9 +185,9 @@ def test_ring_rotation_is_compute_independent_in_hlo():
     ring, every treelet collective-permute consumes only a parameter or
     the previous collective-permute — never a product of the traversal
     loops. The whole rotation chain is dataflow-independent of compute,
-    which is exactly the property that lets the TPU scheduler run the
-    ICI transfer of block s+1 under block s's traversal (async
-    collective start/done pairs wrap these same ops on TPU backends)."""
+    which is exactly the property that lets the scheduler run the
+    transfer of block s+1 under block s's traversal (async collective
+    start/done pairs wrap these same ops)."""
     import re
 
     from jax import shard_map

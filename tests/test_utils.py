@@ -79,27 +79,33 @@ class TestPurity:
         np.testing.assert_array_equal(a, b)
 
 
-def test_packet_tile_heatmap():
-    """render/debug.py::packet_tile_image — per-tile packet cost channel
-    (the reference's commented-out heatmap idea at packet granularity)."""
-    import numpy as np
-    from clpathtracer_tpu.accel.sah import build_kd_tree
-    from clpathtracer_tpu.core.camera import Camera
-    from clpathtracer_tpu.render.debug import (
-        colorize_heatmap, packet_tile_image)
-    from clpathtracer_tpu.render.integrator import RenderOptions
-    from clpathtracer_tpu.scene.procedural import random_tri_soup
+class TestCompileCache:
+    def _restore(self):
+        prev = jax.config.jax_compilation_cache_dir
+        return lambda: jax.config.update("jax_compilation_cache_dir", prev)
 
-    scene = random_tri_soup(2000, seed=3, extent=2.0, tri_size=0.05)
-    v0, v1, v2 = scene.tri_verts()
-    tv = np.stack([np.asarray(v0), np.asarray(v1), np.asarray(v2)], 1)
-    tree = build_kd_tree(tv, tri_block=4, leaf_size=16)
-    cam = Camera.create(position=[0.0, 0.0, -4.0], forward=[0.0, 0.0, 1.0])
-    opts = RenderOptions(width=32, height=32, packet_tile=256)
-    img = packet_tile_image(scene, cam, opts, tree, stat="chunks")
-    assert img.shape == (2, 2)
-    assert img.sum() > 0
-    rgb = colorize_heatmap(img)
-    assert rgb.shape == (2, 2, 3)
-    act = packet_tile_image(scene, cam, opts, tree, stat="active")
-    assert (act == 256).all()
+    def test_env_dir_is_left_to_jax(self, monkeypatch):
+        from clpathtracer_tpu.utils.device import enable_compile_cache
+        restore = self._restore()
+        try:
+            jax.config.update("jax_compilation_cache_dir", None)
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+            assert enable_compile_cache() == "/elsewhere"
+            # nothing set in code: the config still holds its old value
+            assert jax.config.jax_compilation_cache_dir is None
+        finally:
+            restore()
+
+    def test_default_is_the_checkout(self, monkeypatch):
+        import os
+        from clpathtracer_tpu.utils.device import enable_compile_cache
+        restore = self._restore()
+        try:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            path = enable_compile_cache()
+            root = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            assert path == os.path.join(root, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+        finally:
+            restore()
